@@ -1,7 +1,7 @@
 """Benchmarks for the BASELINE.json configs.
 
-Default (what the driver runs): vmapped Lotka-Volterra adjoint-gradient
-solves/sec on one chip — the north-star metric.  The reference's own number
+Default: vmapped Lotka-Volterra adjoint-gradient solves/sec on one GPU —
+the north-star metric.  The reference's own number
 for one adjoint forward+backward pair is 1.25 ms on the author's CPU
 (BASELINE.md — from_sympy.ipynb cell 7), i.e. 800 gradient pairs/sec;
 ``vs_baseline`` is measured throughput divided by that.
@@ -9,7 +9,10 @@ for one adjoint forward+backward pair is 1.25 ms on the author's CPU
 Other configs (``--config``): robertson (stiff BDF wall-clock),
 lv_forward (forward solve), lv_sens (forward sensitivities).
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "device"},
+where "device" names the platform, ``device_kind``, device count and the
+card's name and power limit from nvidia-smi.  Exits non-zero, measuring
+nothing, when JAX finds no GPU.
 """
 
 import argparse
@@ -25,20 +28,9 @@ REFERENCE_LV_FORWARD_SEC = 200e-6  # README.md:128-130 (~200us, rtol 1e-10)
 
 
 def _lv_problem():
-    from sunode_tpu.symode import SympyProblem
+    import __graft_entry__ as ge
 
-    def lv(t, y, p):
-        return {
-            "hares": p.alpha * y.hares - p.beta * y.lynx * y.hares,
-            "lynx": p.delta * y.hares * y.lynx - p.gamma * y.lynx,
-        }
-
-    return SympyProblem(
-        params={"alpha": (), "beta": (), "gamma": (), "delta": ()},
-        states={"hares": (), "lynx": ()},
-        rhs_sympy=lv,
-        derivative_params=[("alpha",), ("beta",)],
-    )
+    return ge.lv_problem(symbolic=True)
 
 
 def bench_lv_adjoint(args):
@@ -155,7 +147,7 @@ def _bench_lv_adjoint_single(args):
 
 
 def bench_lv_adjoint_f32(args):
-    """f32 speed mode: the north-star workload at native TPU precision.
+    """f32 speed mode: the north-star workload in f32.
 
     Dtype follows the inputs end-to-end, so f32 arrays run the whole
     pipeline (carry, backward pass, conditioning gates) at native f32 even
@@ -499,6 +491,17 @@ def main():
         args.batch = 256
         args.repeats = 1
 
+    import jax
+
+    from chip_smoke import card_label
+
+    devices = jax.devices()
+    if devices[0].platform != "gpu":
+        sys.exit(f"bench.py: needs a GPU, found platform {devices[0].platform!r}")
+    from sunode_tpu.utils.compile_cache import use_checkout_cache
+
+    use_checkout_cache()
+
     result = {
         "lv_adjoint": bench_lv_adjoint,
         "lv_adjoint_f32": bench_lv_adjoint_f32,
@@ -506,6 +509,12 @@ def main():
         "lv_sens": bench_lv_sens,
         "robertson": bench_robertson,
     }[args.config](args)
+    result["device"] = {
+        "platform": devices[0].platform,
+        "kind": devices[0].device_kind,
+        "count": len(devices),
+        "nvidia_smi": card_label(),
+    }
     print(json.dumps(result))
 
 

@@ -6,7 +6,7 @@ observations of a predator-prey system.  Where the reference forks one OS
 process per PyMC chain, here the JAX-native NUTS (sunode_tpu/sample) runs
 all chains in lockstep and every leapfrog step evaluates ONE batched
 forward ODE solve + ONE batched adjoint solve for all chains together — on
-a TPU this is the same kernel the 10k-chain benchmark uses.
+the GPU this is the same kernel the 10k-chain benchmark uses.
 
 Runs on CPU by default (fast startup); remove the platform override to run
 on an accelerator.

@@ -1,4 +1,4 @@
-"""Fit Lotka-Volterra parameters with PyMC NUTS through the TPU solver.
+"""Fit Lotka-Volterra parameters with PyMC NUTS through the JAX solver.
 
 The analog of the reference README's "Usage in PyMC" section +
 notebooks/pymc_model.ipynb.  Requires pymc + pytensor (optional deps); the
@@ -13,7 +13,7 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 # single-instance solves are latency-bound: CPU is the right device (the
-# batched 10k-chain path is what belongs on the TPU — see __graft_entry__)
+# batched 10k-chain path is what belongs on the GPU — see __graft_entry__)
 if os.environ.get("EXAMPLE_FORCE_CPU", "1") == "1":
     import jax
 

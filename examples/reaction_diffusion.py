@@ -13,7 +13,7 @@ ways, all producing the same trajectory:
 
 Unbatched solves and gradient pairs on a SympyProblem route automatically
 to the native C++ core (no SUNDIALS, no numba); the same options drive the
-jitted JAX/TPU path for batches.  Reference analogs: sunode
+jitted JAX path for batches.  Reference analogs: sunode
 linear_solver='band'/'spgmr' (solver.py:326-358) and the KLU wrapper
 (linear_solver_wrapper.py:99-122).
 """

@@ -1,9 +1,9 @@
 """Multi-region SIR with batched adjoint gradients (BASELINE config 5, scaled).
 
-The full configuration (1k regions x 10k chains) needs a TPU slice — the f64
-adjoint checkpoints alone exceed one chip's HBM; the chain axis shards over a
-mesh exactly as in ``__graft_entry__.dryrun_multichip``.  This script runs
-the same model family at laptop scale and prints gradient timings.
+The full configuration (1k regions x 10k chains) needs several devices — the
+f64 adjoint checkpoints alone exceed one device's memory; the chain axis
+shards over a mesh exactly as in ``__graft_entry__.dryrun_multichip``.  This
+script runs the same model family at laptop scale.
 """
 
 import os

@@ -38,9 +38,9 @@ from sunode_tpu.wrappers.as_jax import make_batched_solve_fn
 
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 128
 B = int(sys.argv[2]) if len(sys.argv) > 2 else 1024
-# adjoint checkpoint rows: (CKPT+1, ~3N+2, B) f64 lives in HBM — 8192 rows
-# at N=128/B=1024 is ~26 GB, far past a v5e's 16 GB.  The solve takes a few
-# hundred steps; 1024 rows is plenty and fits (~3.2 GB).
+# adjoint checkpoint rows: (CKPT+1, ~3N+2, B) f64 lives in device memory —
+# 8192 rows at N=128/B=1024 is ~26 GB.  The solve takes a few hundred
+# steps; 1024 rows is plenty (~3.2 GB).
 CKPT = int(sys.argv[3]) if len(sys.argv) > 3 else 1024
 RTOL, ATOL = 1e-8, 1e-10
 N_GOLD = 3  # lanes checked against the scipy oracle

@@ -1,7 +1,7 @@
 """BASELINE config 5 at scale: SIR 1000-region adjoint gradients, one chip.
 
 Measures the largest (regions x chains) configuration that fits a single
-TPU v5e and the achieved gradient throughput, for the three adjoint modes:
+card and the achieved gradient throughput, for the three adjoint modes:
 
   * hermite    — checkpointed (S, 1+2n, B) f64 buffer: HBM-bound
   * resolve    — re-integrates y backward with lambda: NO checkpoints
@@ -9,9 +9,7 @@ TPU v5e and the achieved gradient throughput, for the three adjoint modes:
 
 Run on the real chip:  python scripts/bench_sir_scale.py [--f32] [R] [B ...]
 (--f32: the f32 speed mode at rtol 1e-5 / atol 1e-7 — the SIR states are
-O(1) fractions, comfortably inside f32 resolution; halves every buffer and
-runs the ALU-bound math at native precision.)
-Results are recorded in docs/performance.md.
+O(1) fractions, comfortably inside f32 resolution; halves every buffer.)
 """
 
 import os
@@ -24,12 +22,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-# persistent compile cache: the R=1000 programs take minutes of remote AOT
-# compile per (mode, B); a re-run after an interruption resumes from cache
-jax.config.update("jax_compilation_cache_dir", "/tmp/sunode_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 from sunode_tpu.ops.bdf import BDFOptions
+from sunode_tpu.utils.compile_cache import use_checkout_cache
 from sunode_tpu.problem import JaxProblem
 from sunode_tpu.wrappers.as_jax import make_batched_solve_fn
 
@@ -159,6 +153,8 @@ def run(mode, B):
 
 
 if __name__ == "__main__":
+    use_checkout_cache()
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     print("devices:", jax.devices())
     for mode in MODES:
         for B in BS:

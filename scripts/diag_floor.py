@@ -1,24 +1,23 @@
-"""Decompose the ~0.46 ms/attempt machinery floor with a device trace.
+"""Decompose the per-attempt cost of the lockstep loops with a device trace.
 
-VERDICT r4 item 6: how much of the per-attempt cost is kernel-boundary /
-HBM round-trip (the slice a hand-fused whole-attempt Pallas kernel could
-recover) vs irreducible on-device work?  Traces ONE north-star gradient
-step (the exact __graft_entry__ build at B=10k), parses the perfetto
-trace, and prints:
+How much of the per-attempt cost is kernel-boundary / device-memory
+round-trip (the slice a hand-fused whole-attempt kernel could recover) vs
+irreducible on-device work?  Traces ONE north-star gradient step (the exact
+__graft_entry__ build at B=10k), parses the perfetto trace, and prints:
 
   * device busy time vs wall span (gap share = dispatch/boundary slice)
   * kernel count and duration distribution
   * top-15 fusions by total device time
 
-Run on the real chip:  python scripts/diag_floor.py [batch]
-Results are recorded in docs/performance.md ("the 0.46 ms floor,
-decomposed").
+Run on the GPU:  python scripts/diag_floor.py [batch]
+The trace is written under ``<checkout>/traces/floor``.
 """
 
 import glob
 import gzip
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -30,7 +29,9 @@ import numpy as np
 import __graft_entry__ as ge
 
 BATCH = int(sys.argv[1]) if len(sys.argv) > 1 else 10_000
-TRACE_DIR = "/tmp/sunode_floor_trace"
+TRACE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "traces", "floor"
+)
 
 fn, (y0s, p_subs) = ge._build(
     batch=BATCH, tvals_n=21, rtol=1e-8, checkpoint_n=384
@@ -44,8 +45,8 @@ out = jax.block_until_ready(step(y0s, p_subs))
 wall = time.perf_counter() - t0
 print(f"one gradient step (B={BATCH}): {wall*1e3:.1f} ms wall")
 
-os.system(f"rm -rf {TRACE_DIR}")
-with jax.profiler.trace(TRACE_DIR):
+shutil.rmtree(TRACE_DIR, ignore_errors=True)
+with jax.profiler.trace(TRACE_DIR, create_perfetto_trace=True):
     out = jax.block_until_ready(step(y0s, p_subs))
 
 paths = glob.glob(f"{TRACE_DIR}/**/*.trace.json.gz", recursive=True)
@@ -65,11 +66,8 @@ for e in events:
     if e.get("ph") == "M" and e.get("name") == "thread_name":
         thread_names[(e["pid"], e.get("tid"))] = e["args"]["name"]
 
-device_pids = {
-    pid
-    for pid, name in proc_names.items()
-    if "TPU" in name or "/device:" in name or "Device" in name
-}
+# GPU device tracks are named "/device:GPU:<i>" (one thread per stream)
+device_pids = {pid for pid, name in proc_names.items() if "/device:GPU" in name}
 slices = [
     e
     for e in events

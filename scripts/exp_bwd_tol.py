@@ -7,7 +7,7 @@ and its step count scales ~rtol^(-1/(p+1)); loosening ONLY the backward
 tolerance trades unused accuracy margin for throughput.  This sweep
 measures grads/s and golden error per backward rtol.
 
-Run: python scripts/exp_bwd_tol.py   (TPU; several compiles, ~10 min)
+Run: python scripts/exp_bwd_tol.py   (GPU; several compiles)
 """
 
 import os

@@ -1,8 +1,7 @@
-"""f32 speed mode: the adjoint pipeline at native TPU precision.
+"""f32 speed mode: the adjoint pipeline in f32.
 
-The lockstep integrator is ALU-bound on EMULATED f64 (docs/performance.md);
-for workloads content with rtol ~1e-5..1e-6 the whole pipeline can run in
-native f32 (SUNODE_TPU_NO_X64=1 + f32 inputs).  This measures the
+For workloads content with rtol ~1e-5..1e-6 the whole pipeline can run in
+f32 (SUNODE_TPU_NO_X64=1 + f32 inputs).  This measures the
 north-star workload in that mode and reports the gradient error against
 the committed tight-tolerance golden fixture.
 

@@ -21,13 +21,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/sunode_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 from sunode_tpu.ops.bdf import BDFOptions
 from sunode_tpu.sample import ess_bulk, nuts_sample, split_rhat
 from sunode_tpu.symode import SympyProblem
+from sunode_tpu.utils.compile_cache import use_checkout_cache
 from sunode_tpu.wrappers.as_jax import make_batched_solve_fn
+
+use_checkout_cache()
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 TRUE = {"alpha": 1.0, "beta": 0.3}
 SIGMA = 0.1

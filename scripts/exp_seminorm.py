@@ -12,7 +12,7 @@ code changes, now that rtol may be a per-component vector:
   * loosen the W block:   quad_rtol / quad_atol
 
 Measures grads/s and worst-lane golden error (scipy LSODA 1e-12 + central
-FD fixture) per variant.  Run: python scripts/exp_seminorm.py  (TPU)
+FD fixture) per variant.  Run: python scripts/exp_seminorm.py  (GPU)
 """
 
 import os

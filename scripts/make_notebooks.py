@@ -20,7 +20,7 @@ HEADER = """\
 import os
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax
-jax.config.update("jax_platforms", "cpu")  # fast startup; remove for TPU
+jax.config.update("jax_platforms", "cpu")  # fast startup; remove for the GPU
 import sys
 sys.path.insert(0, {root!r})
 import numpy as np
@@ -109,8 +109,7 @@ ds"""
             "\n"
             "A leading batch axis on `y0` triggers the lockstep batch-native\n"
             "integrator — the replacement for sunode's fork-per-chain\n"
-            "multiprocessing.  On a TPU v5e this path runs 10,000 chains at\n"
-            "~32 µs/solve."
+            "multiprocessing; on a GPU it runs 10,000 chains in one solve."
         ),
         code(
             """\
@@ -189,7 +188,7 @@ def build_nuts_model():
             "forked OS process per chain), sunode-tpu ships a batch-lockstep\n"
             "NUTS whose every leapfrog step evaluates ONE batched forward +\n"
             "adjoint solve across all chains — the same kernel the 10k-chain\n"
-            "TPU benchmark uses.  (The drop-in `wrappers.as_pytensor` layer\n"
+            "benchmark uses.  (The drop-in `wrappers.as_pytensor` layer\n"
             "still exists for real PyMC models.)"
         ),
         code(HEADER.format(root=os.path.abspath(ROOT))),
@@ -278,9 +277,8 @@ print("divergences:", int(np.asarray(res.diverging).sum()), "/", res.diverging.s
 assert (rhat < 1.05).all()"""
         ),
         md(
-            "On one TPU v5e chip the same gradient kernel evaluates ~20,000\n"
-            "adjoint gradient pairs per second at 10,000 chains — see\n"
-            "`bench.py` and `docs/performance.md`."
+            "On a GPU the same gradient kernel runs at 10,000 chains — see\n"
+            "`bench.py` and `chip_smoke.py`."
         ),
     ]
     return nb

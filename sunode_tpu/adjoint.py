@@ -572,10 +572,11 @@ def _searchsorted_b(ts, t):
     """Rightmost i with ts[i] <= t, per lane.  ts: (S, B) ascending with +inf
     padding; t: (B,).
 
-    Uses a single vectorized comparison+reduce pass — measured ~24x faster on
-    TPU than a binary search (each of the log2(S) sequential gathers costs as
-    much as the whole O(S*B) fused pass) for checkpoint-table sizes.  Falls
-    back to binary search for very large tables."""
+    Uses a single vectorized comparison+reduce pass instead of a binary
+    search: each of the log2(S) sequential gathers can cost as much as the
+    whole O(S*B) fused pass at checkpoint-table sizes.  (Chosen when f64 was
+    emulated in software; the GPU ledger has yet to confirm it.)  Falls back
+    to binary search for very large tables."""
     S, B = ts.shape
     if S <= 8192:
         return jnp.sum((ts <= t[None, :]).astype(jnp.int32), axis=0) - 1
@@ -610,9 +611,10 @@ def make_hermite_eval_batched(saved: dict) -> Callable:
     ts, n_saved = saved["t"], saved["n_saved"]
 
     if "yf" in saved:
-        # fastest measured variant on v5e: two wide row-gathers from the
-        # (S, 2n|3n, B) y|f[|fd] table + two scalar gathers from ts (1.6x
-        # over six strided gathers; packing t INTO the rows tiles worse)
+        # two wide row-gathers from the (S, 2n|3n, B) y|f[|fd] table + two
+        # scalar gathers from ts, in place of six strided gathers (chosen
+        # when f64 was emulated in software; the GPU ledger has yet to
+        # confirm it)
         yf = saved["yf"]
         S, W, B = yf.shape
         quintic = "fd" in saved

@@ -6,7 +6,7 @@ Jacobian, roughly half the steps) with C RHS/Jacobian functions compiled
 from the problem's sympy expressions (native/codegen.py).
 This is the sunode deployment mode rebuilt natively — no SUNDIALS, no numba,
 no Python in the hot loop — and doubles as an independent oracle for
-tolerance-matched testing of the JAX/TPU integrator.
+tolerance-matched testing of the JAX integrator.
 
 Batched solves fan out over a C++ thread pool (``cvbdf_solve_batch``), the
 native replacement for the reference's fork-per-chain multiprocessing

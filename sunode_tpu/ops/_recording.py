@@ -4,7 +4,7 @@ CVODES's adjoint module re-integrates between checkpoints when the buffer is
 bounded (``CVodeAdjInit(ode, steps, ...)``, reference solver.py:530-588;
 include/cvodes/16_cvodes.h:365-439) so a long integration never fails.  A
 functional re-integration-during-backward is a nested adaptive solve per
-interpolation point — hopeless under jit — so the TPU-native equivalent is
+interpolation point — hopeless under jit — so the JAX-native equivalent is
 **in-loop thinning**: when the fixed recording buffer fills, compact it by
 keeping every second row and double the recording stride.  Interpolation
 spacing doubles per level (cubic-Hermite error grows ~16x per level), error

@@ -2,7 +2,7 @@
 
 Structure-of-arrays companion to ``ops/adams.py``, built like
 ``ops/bdf_batched.py`` (trailing batch axis, shared loop indices, unrolled
-masked iterations — see that module for the TPU rationale).  Functional
+masked iterations — see that module for the rationale).  Functional
 iteration means NO Jacobians, NO factorizations and NO linear solves: each
 attempt is a handful of fused elementwise passes, which makes this the
 fastest path for non-stiff workloads (Lotka-Volterra chains, SIR

@@ -1,7 +1,7 @@
 """Banded LU with partial pivoting in banded storage — O(n*(l+u)^2).
 
 The reference links SUNDIALS ``sunlinsol_band`` / ``sunlinsol_lapackband``
-(ref build_cvodes.py:45-72); this is the TPU-native equivalent: LAPACK
+(ref build_cvodes.py:45-72); this is the JAX-native equivalent: LAPACK
 ``gbtrf``/``gbtrs`` re-derived as a ``lax.fori_loop`` over columns with
 static-shape windows, so it jits cleanly, vmaps over lanes, and never
 materializes the dense matrix.  Newton matrices M = I - c*J keep the

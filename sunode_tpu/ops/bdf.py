@@ -1,7 +1,7 @@
 """Variable-order adaptive BDF integrator inside ``lax.while_loop``.
 
-This is the TPU-native replacement for the CVODES C integrator itself
-(reference L0; API surface /root/reference/include/cvodes/16_cvodes.h): a
+This is the JAX-native replacement for the CVODES C integrator itself
+(reference L0; API surface reference include/cvodes/16_cvodes.h): a
 variable-order (1-5), variable-step BDF method with
 
   * backward-difference history array ``D`` (the classic fixed-leading-
@@ -30,7 +30,8 @@ data-dependent control flow (rejection, order change, Newton failure) is
 encoded in the carry, so the whole solve jits once and ``vmap`` turns it into
 a lockstep batched integrator.
 
-TPU performance notes (measured on v5e):
+Performance notes (the layout was tuned on an earlier target where f64 was
+emulated in software; the GPU ledger has yet to confirm each choice):
   - the expensive per-iteration ops are the 6x6 f64 difference-rescaling
     contractions; the loop is structured so each difference array is rescaled
     exactly ONCE per attempt (lazily, at the start of the next attempt)
@@ -38,7 +39,7 @@ TPU performance notes (measured on v5e):
   - accept/reject bookkeeping is fully masked (``jnp.where``) rather than
     ``lax.cond`` — under ``vmap`` both branches run anyway, and masking
     avoids duplicated rescale/update work;
-  - ``inf`` must not reach ``**`` (TPU f64 emulation returns nan for
+  - ``inf`` must not reach ``**`` (a software-emulated f64 returned nan for
     inf**negative where CPU gives 0).
 
 Failures follow the reference's recoverable-error contract: non-finite RHS or
@@ -46,9 +47,9 @@ a failed error test shrink the step (symode/problem.py:266-269); persistent
 failure sets a status code and the caller NaN-fills outputs
 (solver.py:510-519 + as_pytensor.py:244-247 semantics).
 
-Float64 throughout by default; the Newton solve uses the f64-safe pure-jnp
-LU / closed forms from ``sunode_tpu.ops.linalg`` (XLA's own LuDecomposition
-is f32-only on TPU).
+Float64 throughout by default; the Newton solve uses the pure-jnp LU /
+closed forms from ``sunode_tpu.ops.linalg`` (written where XLA's own
+LuDecomposition was f32-only).
 """
 
 from __future__ import annotations
@@ -255,8 +256,9 @@ def _update_D(D, q, d):
     """After an accepted step with correction d = y_new - y_pred:
     D[q+2] = d - D[q+1]; D[q+1] = d; D[i] += D[i+1] for i = q..0.
 
-    Equivalent closed form (one masked contraction — dynamic-index scatters
-    at a traced q are pathologically slow on TPU under vmap):
+    Equivalent closed form (one masked contraction in place of
+    dynamic-index scatters at a traced q under vmap; chosen when f64 was
+    emulated in software, and the GPU ledger has yet to confirm it):
       i <= q   : D_new[i] = sum_{j=i..q} D[j] + d
       i == q+1 : D_new[i] = d
       i == q+2 : D_new[i] = d - D[q+1]
@@ -472,7 +474,7 @@ def bdf_solve(
     vector z = [y | vec(S) | q] with a single difference array, so the
     per-step rescale/predict/update contractions and the error-norm reduce
     happen once regardless of how many blocks are active (CVODES runs the
-    analogous loops per N_Vector; fusing them is the TPU-shaped layout).
+    analogous loops per N_Vector; here they fuse into one array program).
     """
     dtype = jnp.result_type(y0.dtype, jnp.float32)
     y0 = jnp.asarray(y0, dtype)
@@ -1176,7 +1178,7 @@ def bdf_solve(
         )
 
         # step factor for candidate order qq (LTE ~ h^(qq+1)):
-        # NOTE: keep inf out of ** — TPU f64 emulation yields nan for
+        # NOTE: keep inf out of ** — a software-emulated f64 yielded nan for
         # inf**negative (CPU gives 0), so clamp before exponentiating.
         def fac(e, qq):
             unavailable = ~jnp.isfinite(e)

@@ -12,8 +12,8 @@ states are (n, B), matrices (n, n, B)), which buys:
     in-place ``dynamic_update_slice`` (measured 6-7x on the forward pass);
   * *reduced* branch predicates -> Jacobian refresh / refactorization are
     real ``lax.cond`` branches taken only when some lane needs them;
-  * batch-on-lanes layout -> the tiny closed-form Newton solves are fused
-    VPU arithmetic across all chains.
+  * batch-minor layout -> the tiny closed-form Newton solves are fused
+    elementwise arithmetic across all chains.
 
 The per-chain math is identical to ``sunode_tpu.ops.bdf`` (same difference
 arrays, error control, order selection — see that module for the CVODES
@@ -58,9 +58,10 @@ __all__ = ["bdf_solve_batched"]
 def _build_R_elems(q, factor, dtype):
     """Masked rescale matrix as a static KxK grid of (B,) scalars.
 
-    f64 batched einsums/matmuls lower catastrophically on TPU (no f64 MXU),
-    so all the tiny fixed-size contractions in this module are statically
-    unrolled into fused VPU elementwise chains instead.
+    All the tiny fixed-size contractions in this module are statically
+    unrolled into fused elementwise chains instead of batched f64
+    einsums/matmuls (chosen when f64 was emulated in software; the GPU
+    ledger has yet to confirm it).
     """
     K = MAX_ORDER + 1
     rows = [[jnp.ones_like(factor) for _ in range(K)]]
@@ -657,8 +658,8 @@ def bdf_solve_batched(
             # matrix-free: nothing to factor (linearization is per-attempt)
             factors, c_factored, nfactor = c["factors"], c_coef, c["nfactor"]
         elif n <= 4 and not use_band:
-            # tiny systems: "factorizing" is a handful of fused VPU ops —
-            # cheaper to do unconditionally than to pay the cond sync
+            # tiny systems: "factorizing" is a handful of fused elementwise
+            # ops — cheaper to do unconditionally than to pay the cond sync
             factors, c_factored, nfactor = do_factor(None)
         else:
             factors, c_factored, nfactor = lax.cond(
@@ -732,8 +733,10 @@ def bdf_solve_batched(
         )
         # small n: statically unrolled — in lockstep the max-over-lanes
         # iteration count governs anyway, and unrolling removes
-        # per-iteration cond syncs (iterations are a handful of fused VPU
-        # ops).  Large n: a real while_loop with all-lanes early exit —
+        # per-iteration cond syncs (iterations are a handful of fused
+        # elementwise ops; the n <= 16 threshold was chosen when f64 was
+        # emulated in software, and the GPU ledger has yet to confirm it).
+        # Large n: a real while_loop with all-lanes early exit —
         # each iteration costs an O(n·w²)/O(n²) linear solve, so paying
         # NEWTON_MAXITER unconditionally when the batch typically converges
         # in 1-2 iterations wastes most of the Newton time (measured: the

@@ -1,14 +1,15 @@
 """Matrix-free GMRES for the Newton systems (SPGMR analog).
 
 Replaces the reference's ``sunlinsol_spgmr`` path (linear_solver='spgmr',
-/root/reference/sunode/solver.py:326-358): solves (I - c J) x = b using only
+reference sunode/solver.py:326-358): solves (I - c J) x = b using only
 Jacobian-vector products (jvp), no materialized Jacobian.
 
 Hand-rolled (rather than jax.scipy.sparse.linalg.gmres) because the Newton
-loop needs a fixed-structure, f64-safe-on-TPU implementation: XLA's
-TriangularSolve — like LuDecomposition — is f32-only on TPU, so the
-least-squares solve uses Givens rotations and explicit back-substitution in
-pure elementwise jnp.  Restart-free GMRES(m) with CVODES's default Krylov
+loop needs a fixed-structure implementation: the least-squares solve uses
+Givens rotations and explicit back-substitution in pure elementwise jnp
+(written where XLA's f64 TriangularSolve was unavailable; whether XLA's own
+triangular solve beats it on the GPU is for the ledger to decide).
+Restart-free GMRES(m) with CVODES's default Krylov
 depth (maxl=5)."""
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ def gmres_solve_batched(
     operator to its own column.  The scalar recurrences of ``gmres_solve``
     (Arnoldi coefficients, Givens rotations, back-substitution) become
     (B,)-vector elementwise ops — one static unroll over the Krylov
-    dimension whose body is fused VPU arithmetic over all lanes, the same
+    dimension whose body is fused elementwise arithmetic over all lanes, the same
     SoA pattern as the batched banded LU (ops/bdf_batched.py).  Per-lane
     inner products are sums over axis 0 only.
     """

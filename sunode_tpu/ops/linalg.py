@@ -1,15 +1,15 @@
-"""Dense & banded linear solves that are f64-safe on TPU and vmappable.
+"""Dense & banded linear solves in plain jnp, f64-safe and vmappable.
 
-XLA's built-in ``LuDecomposition`` op is f32/c64-only on TPU, so
-``jnp.linalg.solve``/``jax.scipy.linalg.lu_factor`` cannot be used in the
-float64 Newton path.  This module implements LU with partial pivoting out of
-elementwise/gather primitives (which the TPU backend emulates correctly in
-f64), plus closed-form solves for the tiny systems (n <= 3) that dominate the
-vmapped-chains workloads — for a 2-state Lotka-Volterra batch the Newton
-solve is pure VPU arithmetic with no loops at all.
+This module implements LU with partial pivoting out of elementwise/gather
+primitives, plus closed-form solves for the tiny systems (n <= 3) that
+dominate the vmapped-chains workloads — for a 2-state Lotka-Volterra batch
+the Newton solve is pure elementwise arithmetic with no loops at all.  It was
+written for a backend whose ``LuDecomposition`` was f32-only; on the GPU,
+XLA factors f64 through cuSOLVER, and whether this hand-written LU still pays
+is for the ledger to decide.
 
-This is the TPU-native replacement for the reference's SUNLinearSolver layer
-(/root/reference/sunode/linear_solver_wrapper.py:17-122 wrapping
+This is the JAX-native replacement for the reference's SUNLinearSolver layer
+(reference sunode/linear_solver_wrapper.py:17-122 wrapping
 sunlinsol_dense/lapackdense/klu): "factor once, solve many" maps to
 ``lu_factor``/``lu_solve``; the tiny-n fast path replaces the LAPACK call
 entirely.
@@ -42,7 +42,7 @@ def lu_factor(A: jnp.ndarray):
 
     Returns (LU, piv) where LU packs unit-lower L below the diagonal and U on
     and above it; piv[k] is the row swapped into position k at step k.
-    Pure jnp (fori_loop + masked rank-1 updates): f64-safe on TPU.
+    Pure jnp (fori_loop + masked rank-1 updates).
     """
     n = A.shape[-1]
     idx = jnp.arange(n)
@@ -178,9 +178,9 @@ def solve_factored(factors, b: jnp.ndarray) -> jnp.ndarray:
 
 # ---------------------------------------------------------------------------
 # Trailing-batch ("structure of arrays") variants for the batch-native
-# integrator: matrices are (n, n, B), vectors (n, B).  The batch axis lands
-# on TPU lanes, so the tiny closed forms are pure fused VPU arithmetic across
-# all chains at once.
+# integrator: matrices are (n, n, B), vectors (n, B).  The batch axis is the
+# minor one, so the tiny closed forms are pure fused elementwise arithmetic
+# across all chains at once.
 # ---------------------------------------------------------------------------
 def _solve1_t(A, b):
     return b / A[0, 0][None]

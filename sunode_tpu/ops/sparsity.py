@@ -1,10 +1,10 @@
-"""Structural-sparsity machinery: the TPU-first KLU analog.
+"""Structural-sparsity machinery: the JAX-native KLU analog.
 
 The reference binds SuiteSparse KLU for sparse-direct Newton solves
-(/root/reference/sunode/linear_solver_wrapper.py:99-122, matrix.py:105-200,
+(reference sunode/linear_solver_wrapper.py:99-122, matrix.py:105-200,
 problem.py:385-416 ``make_sundials_jac_sparse``).  A sparse-direct LU with
 dynamic pivoting is the wrong shape for XLA (data-dependent fill-in,
-pointer-chasing); the TPU-native equivalent exploits the SAME structural
+pointer-chasing); the JAX-native equivalent exploits the SAME structural
 information differently:
 
   * the Jacobian's structural pattern (exact, from the symbolic Jacobian —

@@ -1,22 +1,24 @@
-"""Multi-chip scaling: shard batches of ODE solves over a TPU mesh.
+"""Multi-device scaling: shard batches of ODE solves over a device mesh.
 
 The reference's only parallelism is fork-per-chain multiprocessing
 (README.md:233-238; quickstart_pymc.rst:154-163) — one CVODES instance per OS
-process.  The TPU-native equivalent (SURVEY.md §2 "Parallelism") is:
+process.  The JAX-native equivalent (SURVEY.md §2 "Parallelism") is:
 
   * ``vmap`` batches thousands of independent solves into one lockstep
-    integrator on one chip;
-  * ``jax.sharding`` + ``jit`` shards the batch ("chains") axis across chips
-    over ICI — embarrassingly parallel, no collectives in the hot loop;
+    integrator on one device;
+  * ``jax.sharding`` + ``jit`` shards the batch ("chains") axis across
+    devices — embarrassingly parallel, no collectives in the hot loop;
   * a second mesh axis ("state") shards large vector *states* (the SIR
     1k-region family): elementwise RHS work and the adjoint checkpoint
     buffers split along the state axis, XLA inserting halo collectives for
     neighbor coupling and psums for the WRMS norms.
 
 Because chains are independent, XLA inserts no communication for the chain
-axis — the only cross-chip traffic is the initial scatter and final gather,
-riding ICI.  This file provides small helpers; they are plain JAX and work
-identically on a virtual CPU mesh (tests) and a real TPU slice.
+axis — the only cross-device traffic is the initial scatter and final
+gather.  Meshes take devices in ``jax.devices()`` order with no topology
+shape: the GPUs of one host reach each other all to all over NVLink.  This
+file provides small helpers; they are plain JAX and work identically on a
+virtual CPU mesh (tests) and real GPUs.
 """
 
 from __future__ import annotations
@@ -58,8 +60,8 @@ def make_mesh_2d(
 ) -> Mesh:
     """A 2-D (chains x state) mesh: chains stay embarrassingly parallel while
     large model states (e.g. 3R SIR compartments) split across ``n_state``
-    chips, dividing both the per-chip RHS work and — the usual HBM limit —
-    the f64 adjoint checkpoint buffer (S, 1+2n, B)."""
+    devices, dividing both the per-device RHS work and — the usual memory
+    limit — the f64 adjoint checkpoint buffer (S, 1+2n, B)."""
     devs = jax.devices()
     need = n_chains * n_state
     if len(devs) < need:

@@ -1,9 +1,9 @@
 """Nested named-variable specifications as flat vectors (pytree-first).
 
-This is the TPU-native replacement for the reference's structured-numpy-dtype
+This is the JAX-native replacement for the reference's structured-numpy-dtype
 partitioning machinery (``sunode/dtypesubset.py:71`` ``DTypeSubset``): the
 reference packs named (possibly nested) states/params into numpy structured
-dtypes and carves zero-copy subset views out of them.  On TPU everything is a
+dtypes and carves zero-copy subset views out of them.  Here everything is a
 flat ``jnp`` vector inside jitted code, so this module instead maintains the
 *metadata* — paths, shapes, dims/coords, flat slices, derivative-subset
 indices — and provides cheap (XLA-fusable, static-index) flatten / unflatten /

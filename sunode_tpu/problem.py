@@ -1,7 +1,7 @@
 """Problem abstraction: named ODE problems as pure JAX functions.
 
-TPU-native replacement for the reference's ``Problem`` protocol + SUNDIALS
-callback bridge (/root/reference/sunode/problem.py:14-98, 156-494).  The
+JAX-native replacement for the reference's ``Problem`` protocol + SUNDIALS
+callback bridge (reference sunode/problem.py:14-98, 156-494).  The
 reference wraps numba-njit functions into C-ABI ``@numba.cfunc`` callbacks for
 CVODES; here every derivative function is a *pure JAX function on flat
 vectors* that the integrator traces straight into one XLA computation — the
@@ -155,7 +155,7 @@ class Problem:
 
         S has shape (n_deriv_params, n_states), matching the reference's yS
         layout (problem.py:269-313).  Computed as S @ J^T + dfdp^T so the
-        contraction hits the MXU for large systems.
+        contraction is one matrix product for large systems.
         """
         jac = self.make_jac_dense()
         dfdp = self.make_dfdp()
@@ -271,7 +271,7 @@ class Problem:
 class JaxProblem(Problem):
     """An ODE problem whose right-hand side is written directly in JAX.
 
-    This is the TPU-first authoring mode (the analog of the reference's
+    This is the JAX-first authoring mode (the analog of the reference's
     "manual numba RHS" escape hatch): the user writes
 
         def rhs(t, y, p):

@@ -8,7 +8,7 @@ vmap-of-single-chain sampler — it is written with the chain axis explicit so
 that EVERY gradient evaluation is one call of the *batched* logp across all
 chains: with ``make_batched_solve_fn`` as the likelihood, each leapfrog step
 runs one batched forward ODE solve + one batched adjoint solve for all
-chains together on the chip (the TPU-shaped replacement for
+chains together on the device (the accelerator replacement for
 fork-per-chain).
 
 Algorithm: multinomial NUTS (trajectory sampled proportionally to
@@ -381,8 +381,8 @@ def nuts_sample(
     most this many iterations, each dispatched as its own device program.
     By default the whole run is ONE ``lax.scan`` — for expensive logp
     (thousands of ODE-solve chains) that is minutes-to-hours of
-    uninterrupted device execution, which remote-attached accelerators
-    (relay/RPC setups) may kill with a watchdog.  Chunking bounds the
+    uninterrupted device execution, which a device watchdog (e.g. on a
+    display-attached GPU) may kill.  Chunking bounds the
     per-dispatch runtime at negligible overhead (one host round-trip per
     chunk); results are bitwise identical to the unchunked run.
     """

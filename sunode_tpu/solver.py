@@ -15,7 +15,7 @@ Differences by design:
   - pickling is trivial (all state is arrays + config) — the reference needs
     custom ``__getstate__`` to rebuild C state (solver.py:304-324) and its
     ``AdjointSolver`` cannot pickle at all;
-  - a batch axis on y0/params triggers the vmapped solver: the TPU-native
+  - a batch axis on y0/params triggers the vmapped solver: the accelerator
     replacement for fork-per-chain multiprocessing (README.md:233-238).
 """
 
@@ -110,7 +110,7 @@ class _SolverBase:
 
     _problem: Problem
     # working precision of the solve (np.float64 default = CVODES realtype
-    # parity, ref basic.py:40-43; np.float32 opts into TPU-speed mode)
+    # parity, ref basic.py:40-43; np.float32 opts into f32 speed mode)
     _dtype: np.dtype = np.dtype(np.float64)
 
     def _set_dtype(self, dtype) -> None:
@@ -223,7 +223,7 @@ class Solver(_SolverBase):
         # reference defaults: abstol=1e-10, reltol=1e-10 (solver.py:242-254)
         if solver not in ("BDF", "ADAMS"):
             raise ValueError("solver must be 'BDF' or 'ADAMS'")
-        # dtype=np.float32 opts the whole solve into TPU-speed f32 mode
+        # dtype=np.float32 opts the whole solve into f32 speed mode
         # (the default f64 matches the reference realtype, basic.py:40-43).
         # f32 runs skip the f64-only native host route and need tolerances
         # the precision can meet (rtol >~ 1e-6); see docs/limitations.md.
@@ -1057,7 +1057,7 @@ class AdjointSolver(_SolverBase):
     ):
         if solver not in ("BDF", "ADAMS") or adjoint_solver not in ("BDF", "ADAMS"):
             raise ValueError("solver/adjoint_solver must be 'BDF' or 'ADAMS'")
-        # dtype=np.float32: TPU-speed f32 mode for forward AND backward
+        # dtype=np.float32: f32 speed mode for forward AND backward
         # passes (f64 default = reference realtype).  The reference-default
         # 1e-10 tolerances are meaningless in f32 — require explicit,
         # representable tolerances.

@@ -1,7 +1,7 @@
 """Lower sympy expression arrays to JAX functions with CSE preserved.
 
-TPU-native replacement for the reference's sympy -> numba-AST compiler
-(/root/reference/sunode/symode/lambdify.py:203 ``lambdify_consts``): where the
+JAX-native replacement for the reference's sympy -> numba-AST compiler
+(reference sunode/symode/lambdify.py:203 ``lambdify_consts``): where the
 reference emits a Python module via raw ``ast`` construction and compiles it
 with ``@numba.njit`` into a C-callable, we emit Python *source* whose body is a
 sequence of let-bindings (one per ``sympy.cse`` replacement — the

@@ -1,7 +1,7 @@
 """Symbolically-defined ODE problems (sympy) lowered to JAX.
 
-TPU-native rebuild of the reference ``SympyProblem``
-(/root/reference/sunode/symode/problem.py:24-611): the user writes the
+JAX-native rebuild of the reference ``SympyProblem``
+(reference sunode/symode/problem.py:24-611): the user writes the
 right-hand side once as a sympy expression over named (nested) states and
 params; Jacobian, adjoint RHS, quadrature RHS and forward-sensitivity RHS are
 derived *symbolically* (same derivations as symode/problem.py:142-148) and

@@ -1,12 +1,12 @@
 """Differentiable ODE solving as native JAX functions (``jax.custom_vjp``).
 
-This is the TPU-native analog of the reference's PyTensor Op layer
-(/root/reference/sunode/wrappers/as_pytensor.py): where the reference wraps
+This is the JAX-native analog of the reference's PyTensor Op layer
+(reference sunode/wrappers/as_pytensor.py): where the reference wraps
 the solver in ``SolveODE`` / ``SolveODEAdjoint`` / ``SolveODEAdjointBackward``
 Ops so PyTensor can differentiate through it, here the solve is a JAX function
 with a custom VJP, so ``jax.grad`` / ``jax.vmap`` / ``jax.jit`` compose with
 it directly — and PyMC NUTS (or any JAX sampler) can differentiate through
-thousands of vmapped solves on a TPU mesh.
+thousands of vmapped solves on a device mesh.
 
 Gradient modes (reference ``derivatives=`` kwarg, as_pytensor.py:121-137):
   'adjoint' — checkpointed adjoint backsolve (SolveODEAdjoint.grad semantics)
@@ -321,7 +321,7 @@ def make_batched_solve_fn(
     Returns ``solve(t0, y0, p_sub, p_fix, tvals) -> ys`` with y0 (B, n),
     p_sub (B, k); t0/tvals/p_fix shared across the batch.  Uses the
     structure-of-arrays integrator (ops/bdf_batched.py) instead of
-    ``vmap(bdf_solve)`` — same math, TPU-shaped loop structure.  Only
+    ``vmap(bdf_solve)`` — same math, one lockstep loop over the batch.  Only
     'adjoint' and None gradient modes for now.
 
     ``adjoint_interpolation``: 'hermite' (CVODES CV_HERMITE checkpoint
@@ -532,14 +532,13 @@ def solve_ivp(
 
     Dtype follows the inputs (f32 speed mode): float32 ``y0``/``params``
     leaves run the whole pipeline — forward carry, backward pass,
-    gradients — at native TPU f32 even with x64 enabled (~6x f64
-    throughput; pair with rtol ~1e-5/1e-6, see docs/performance.md).
+    gradients — in f32 even with x64 enabled (pair with rtol ~1e-5/1e-6;
+    see docs/performance.md "f32 speed mode").
     Python scalars are weakly typed and follow the array leaves; all-f64
     (or all-scalar) inputs keep the reference's f64 semantics.
     """
     from sunode_tpu.paramspec import flatten_path_dict, nest_path_dict
     from sunode_tpu.problem import JaxProblem
-    from sunode_tpu.symode.problem import SympyProblem
 
     solver_kwargs = dict(solver_kwargs or {})
 
@@ -571,6 +570,8 @@ def solve_ivp(
     params_spec = nest_path_dict(p_shapes)
 
     if use_sympy:
+        from sunode_tpu.symode.problem import SympyProblem
+
         problem = SympyProblem(
             params=params_spec,
             states=states_spec,

@@ -1,12 +1,12 @@
-"""PyTensor/PyMC integration: differentiate through the TPU ODE solver.
+"""PyTensor/PyMC integration: differentiate through the JAX ODE solver.
 
 API-compatible rebuild of the reference wrapper
-(/root/reference/sunode/wrappers/as_pytensor.py): the same ``solve_ivp``
+(reference sunode/wrappers/as_pytensor.py): the same ``solve_ivp``
 entry point and Op structure (``SolveODE``, ``SolveODEAdjoint``,
 ``SolveODEAdjointBackward``, ``EvalRhs``) so PyMC models written against
 sunode work unchanged — but ``perform`` dispatches into the jitted JAX
 solvers instead of CVODES, so each logp/grad evaluation runs on the
-TPU/accelerator (and chains can be batched there rather than forked).
+accelerator (and chains can be batched there rather than forked).
 
 Import of pytensor is deferred so the rest of the package works without it.
 

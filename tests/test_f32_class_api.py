@@ -1,9 +1,9 @@
 """f32 opt-in on the reference-shaped class API (VERDICT r4 item 5).
 
 ``Solver(..., dtype=np.float32)`` / ``AdjointSolver(..., dtype=np.float32)``
-run the whole pipeline at f32 (TPU-speed mode) without abandoning the
-reference-shaped API — previously the measured ~5.6x f32 win required
-finding ``make_batched_solve_fn``.  The f64 default keeps reference
+run the whole pipeline at f32 (f32 speed mode) without abandoning the
+reference-shaped API — previously f32 required finding
+``make_batched_solve_fn``.  The f64 default keeps reference
 realtype semantics (/root/reference/sunode/basic.py:40-43) and the native
 host fast path (which is f64-only and must be skipped at f32).
 

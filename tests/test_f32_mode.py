@@ -1,10 +1,9 @@
 """f32 speed mode: dtype follows the inputs through every JAX-path surface.
 
-TPU has no native f64 ALU, so the f32 pipeline (docs/performance.md "f32
-speed mode", measured ~5.6x the f64 adjoint throughput) must stay f32
+The f32 pipeline (docs/performance.md "f32 speed mode") must stay f32
 end-to-end even when x64 is globally enabled — a single hard-cast anywhere
 (generated code, ParamSpec.combine, coefficient tables) either promotes the
-whole solve back to emulated f64 or breaks the while_loop carry outright.
+whole solve back to f64 or breaks the while_loop carry outright.
 
 The class API (Solver/AdjointSolver) is deliberately NOT covered: it is
 fixed f64, matching the reference's realtype
@@ -138,8 +137,7 @@ def test_forward_solve_f32(lv_problem):
 def test_extreme_params_no_livelock(lv_problem, core):
     """Params ~1e16 overflow the f32 WRMS norms in the initial-step
     estimate (inf/inf -> NaN h); a NaN h defeats every `h < h_min` guard
-    (NaN comparisons are False) and the step loop used to run FOREVER —
-    on a remote TPU the watchdog killed the worker ("kernel fault").
+    (NaN comparisons are False) and the step loop used to run FOREVER.
     The lane must instead die promptly with a nonzero status."""
     from sunode_tpu.ops.adams_batched import adams_solve_batched
     from sunode_tpu.ops.bdf_batched import bdf_solve_batched

@@ -83,6 +83,38 @@ def test_lv_adjoint_gradients_golden(lv_problem, mode):
     np.testing.assert_allclose(np.asarray(gp), g["gp"], rtol=2e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize(
+    "mode,method",
+    [("transition", "ADAMS"), ("resolve", "ADAMS"), ("hermite", "BDF")],
+)
+def test_lv_adjoint_gradients_golden_jax_problem(mode, method):
+    """The same gate through a JaxProblem RHS (no sympy on the device path),
+    over the adjoint modes the batched solver supports for each method."""
+    import __graft_entry__ as ge
+
+    g = _load("lv_adjoint.npz")
+    solve = make_batched_solve_fn(
+        ge.lv_problem(),
+        derivatives="adjoint",
+        options=BDFOptions(rtol=1e-8, atol=1e-8),
+        adjoint_options=BDFOptions(rtol=1e-8, atol=1e-8),
+        checkpoint_n=1024,
+        method=method,
+        adjoint_interpolation=mode,
+    )
+    tvals = jnp.asarray(g["tvals"])
+    p_fix = jnp.asarray(g["p_fix"])
+
+    def loss(y0s, p_subs):
+        return jnp.sum(solve(0.0, y0s, p_subs, p_fix, tvals) ** 2)
+
+    gy, gp = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+        jnp.asarray(g["y0s"]), jnp.asarray(g["p_subs"])
+    )
+    np.testing.assert_allclose(np.asarray(gy), g["gy"], rtol=2e-3, atol=1e-3)
+    np.testing.assert_allclose(np.asarray(gp), g["gp"], rtol=2e-3, atol=1e-3)
+
+
 def test_lv_adjoint_trajectory_golden(lv_problem):
     """The bench's forward trajectories themselves are tolerance-matched."""
     g = _load("lv_adjoint.npz")

@@ -1,7 +1,7 @@
 """SIR-type epidemiological ODE with vector states (BASELINE config 5).
 
-1k-region x 10k-chain full scale needs a TPU slice (the f64 adjoint
-checkpoints alone exceed one chip's HBM — see docs/limitations.md); these
+1k-region x 10k-chain full scale needs several devices (the f64 adjoint
+checkpoints alone exceed one device's memory — see docs/limitations.md); these
 tests run the same model family scaled down, through the same batched
 adjoint code path, plus a sharded variant on the test mesh.
 """
